@@ -20,11 +20,10 @@ REF_IMG = "/root/reference/data/tum_vi_with_chart.png"
 
 
 def main():
-    import imageio.v3 as iio
-
-    from ccrs_tpu.calib import convert_model
-    from ccrs_tpu.models import model_from_json, model_to_json, zeros_like_model
-    from ccrs_tpu.models.undistort import (
+    from ccrs_jax.calib import convert_model
+    from ccrs_jax.pngio import read_png, write_png
+    from ccrs_jax.models import model_from_json, model_to_json, zeros_like_model
+    from ccrs_jax.models.undistort import (
         estimate_new_camera_matrix_for_undistort,
         init_undistort_map,
         remap,
@@ -41,14 +40,14 @@ def main():
 
     img_path = sys.argv[2] if len(sys.argv) > 2 else REF_IMG
     if os.path.exists(img_path):
-        img = iio.imread(img_path)
+        img = read_png(img_path)
         if img.dtype == np.uint16:
             img = (img / 257).astype(np.uint8)
         new_wh = 1024
         K = estimate_new_camera_matrix_for_undistort(target, 1.0, (new_wh, new_wh))
         xmap, ymap = init_undistort_map(target, K, (new_wh, new_wh))
         out = remap(img, xmap, ymap)
-        iio.imwrite("remaped_ucm.png", out.astype(np.uint8))
+        write_png("remaped_ucm.png", out.astype(np.uint8))
         print("wrote remaped_ucm.png")
 
 

@@ -22,30 +22,30 @@ EUROC = "/root/reference/data/euroc.png"
 
 
 def main():
-    import imageio.v3 as iio
     import jax.numpy as jnp
 
-    from ccrs_tpu.board import create_default_6x6_board
-    from ccrs_tpu.detect import TagDetector, get_family
-    from ccrs_tpu.models import GenericModel
-    from ccrs_tpu.models.undistort import (
+    from ccrs_jax.board import create_default_6x6_board
+    from ccrs_jax.pngio import read_png, write_png
+    from ccrs_jax.detect import TagDetector, get_family
+    from ccrs_jax.models import GenericModel
+    from ccrs_jax.models.undistort import (
         estimate_new_camera_matrix_for_undistort,
         init_undistort_map,
         remap,
     )
-    from ccrs_tpu.solve.pnp import solve_pnp_planar
-    from ccrs_tpu.types import RvecTvec
+    from ccrs_jax.solve.pnp import solve_pnp_planar
+    from ccrs_jax.types import RvecTvec
 
     board = create_default_6x6_board()
     if len(sys.argv) > 1:
-        img = iio.imread(sys.argv[1])
+        img = read_png(sys.argv[1])
         model = GenericModel("ucm", [471.019, 470.243, 367.122, 246.741, 0.67485], 752, 480)
     elif os.path.exists(EUROC):
-        img = iio.imread(EUROC)
+        img = read_png(EUROC)
         # the calibrated EuRoC cam0 UCM (reference examples/test_pnp.rs:14)
         model = GenericModel("ucm", [471.019, 470.243, 367.122, 246.741, 0.67485], 752, 480)
     else:
-        from ccrs_tpu.testdata import default_sequence_poses, render_board_image
+        from ccrs_jax.testdata import default_sequence_poses, render_board_image
 
         model = GenericModel("ucm", [471.019, 470.243, 367.122, 246.741, 0.67485], 752, 480)
         pose = default_sequence_poses(1, board, seed=2)[0]
@@ -81,7 +81,7 @@ def main():
     K = estimate_new_camera_matrix_for_undistort(model, 1.0, (new_wh, new_wh))
     xmap, ymap = init_undistort_map(model, K, (new_wh, new_wh))
     out = remap(img, xmap, ymap)
-    iio.imwrite("remaped_euroc.png", out.astype(np.uint8))
+    write_png("remaped_euroc.png", out.astype(np.uint8))
     print("wrote remaped_euroc.png")
 
 

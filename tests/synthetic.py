@@ -5,11 +5,11 @@ calibration sequence."""
 import numpy as np
 import jax.numpy as jnp
 
-from ccrs_tpu.board import Board, BoardConfig
-from ccrs_tpu.calib.frames import FrameBatch
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.models.projections import project_fn
-from ccrs_tpu.solve import se3
+from ccrs_jax.board import Board, BoardConfig
+from ccrs_jax.calib.frames import FrameBatch
+from ccrs_jax.models import GenericModel
+from ccrs_jax.models.projections import project_fn
+from ccrs_jax.solve import se3
 
 
 def make_synthetic_batch(

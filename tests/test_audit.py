@@ -11,8 +11,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from ccrs_tpu.detect.audit import AuditPolicy, RowLayout
-from ccrs_tpu.detect.track import MIN_TRACK_TAGS
+from ccrs_jax.detect.audit import AuditPolicy, RowLayout
+from ccrs_jax.detect.track import MIN_TRACK_TAGS
 
 N_TAGS = 36
 K = 40
@@ -176,7 +176,7 @@ def test_known_bad_stamp_keeps_newest_confirmation():
     fails, acc = healthy(600)
     for f in (518, 220):  # trigger order: 518 first, then 220
         fails[f] = {29}
-    from ccrs_tpu.detect.audit import RoundPlan
+    from ccrs_jax.detect.audit import RoundPlan
 
     plan = RoundPlan(lead=[518, 220], light_set=set(), no_resweep=set())
     pol.record_outcome(plan, fails, {518: set(), 220: set()},

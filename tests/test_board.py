@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from ccrs_tpu.board import Board, BoardConfig, create_default_6x6_board
+from ccrs_jax.board import Board, BoardConfig, create_default_6x6_board
 
 
 def test_board_init():

@@ -5,10 +5,10 @@ import jax
 import numpy as np
 import pytest
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.calib import init_and_calibrate_one_camera, validation
-from ccrs_tpu.models import GenericModel, zeros_like_model
-from ccrs_tpu.types import CalibParams
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.calib import init_and_calibrate_one_camera, validation
+from ccrs_jax.models import GenericModel, zeros_like_model
+from ccrs_jax.types import CalibParams
 
 from synthetic import make_synthetic_batch
 

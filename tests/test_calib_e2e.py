@@ -6,15 +6,15 @@ import jax
 import numpy as np
 import pytest
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.calib import (
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.calib import (
     calib_camera,
     convert_model,
     init_and_calibrate_one_camera,
     validation,
 )
-from ccrs_tpu.models import GenericModel, zeros_like_model
-from ccrs_tpu.types import CalibParams
+from ccrs_jax.models import GenericModel, zeros_like_model
+from ccrs_jax.types import CalibParams
 
 from synthetic import make_synthetic_batch, tumvi_like_eucm
 
@@ -57,7 +57,7 @@ def test_attempt_metadata_is_per_call():
     assert not hasattr(init_and_calibrate_one_camera, "last_init_frames")
     # the retry ladder republishes the RETURNED attempt's keyframes
     # (main-thread only) for the CLI's Rerun markers
-    from ccrs_tpu.calib.pipeline import calibrate_camera_with_retries
+    from ccrs_jax.calib.pipeline import calibrate_camera_with_retries
 
     calibrate_camera_with_retries(
         board, batch, zeros_like_model("eucm"), CalibParams(),

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ccrs_tpu.detect.ccl import extract_quads_device, label_components
-from ccrs_tpu.detect.quads import extract_quads_batch
+from ccrs_jax.detect.ccl import extract_quads_device, label_components
+from ccrs_jax.detect.quads import extract_quads_batch
 
 
 def _match(qa, qb, tol):
@@ -85,7 +85,7 @@ def test_border_touching_rejected():
 
 def test_rotated_quads_all_angles():
     # corners must be recovered within ~1.5 px for arbitrary rotations
-    from ccrs_tpu.solve import se3
+    from ccrs_jax.solve import se3
 
     for deg in (10, 30, 60, 75):
         a = np.deg2rad(deg)
@@ -115,14 +115,14 @@ def test_rotated_quads_all_angles():
 def test_e2e_device_quads_decode_like_native():
     """threshold -> device CCL -> decode finds the same tags as the
     native-extraction path on a rendered board frame."""
-    from ccrs_tpu.board import create_default_6x6_board
-    from ccrs_tpu.detect import get_family
-    from ccrs_tpu.detect.decode import refine_decode_fused
-    from ccrs_tpu.detect.threshold import adaptive_threshold, pad_to_tile
-    from ccrs_tpu.models import GenericModel
-    from ccrs_tpu.testdata import front_view_base, render_board_image
+    from ccrs_jax.board import create_default_6x6_board
+    from ccrs_jax.detect import get_family
+    from ccrs_jax.detect.decode import refine_decode_fused
+    from ccrs_jax.detect.threshold import adaptive_threshold, pad_to_tile
+    from ccrs_jax.models import GenericModel
+    from ccrs_jax.testdata import front_view_base, render_board_image
 
-    from ccrs_tpu.solve import se3
+    from ccrs_jax.solve import se3
 
     board = create_default_6x6_board()
     fam = get_family("t36h11")

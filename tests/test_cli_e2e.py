@@ -1,6 +1,6 @@
 """CLI end-to-end test: rendered dataset on disk -> `ccrs` run -> artifacts.
 
-The TPU-native counterpart of the reference's CI acceptance run (the full
+The counterpart of the reference's CI acceptance run (the full
 binary on a real dataset, .github/workflows/rust.yml) with synthetic data
 (no network) and exact ground truth to assert against.
 """
@@ -11,9 +11,9 @@ import os
 import numpy as np
 import pytest
 
-from ccrs_tpu.cli import main
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.testdata import write_euroc_dataset
+from ccrs_jax.cli import main
+from ccrs_jax.models import GenericModel
+from ccrs_jax.testdata import write_euroc_dataset
 
 
 @pytest.fixture(scope="module")
@@ -68,11 +68,11 @@ def test_cli_full_run(dataset, tmp_path, monkeypatch):
 def test_cli_chunked_speculation_fires(dataset, tmp_path, monkeypatch):
     """The CLI's streaming (chunked) loader must fire the speculative
     calibration and the final solve must consume the warm seed — the
-    benched architecture IS the product path (VERDICT r04 #1/#5).  A
+    benched architecture IS the product path.  A
     silent spec-disable (e.g. a batch-shape gate regression) fails here,
     not just as an unexplained fps drop."""
-    import ccrs_tpu.dataloader as dl
-    from ccrs_tpu.calib.pipeline import calibrate_camera_with_retries as ccwr
+    import ccrs_jax.dataloader as dl
+    from ccrs_jax.calib.pipeline import calibrate_camera_with_retries as ccwr
 
     root, gt = dataset
     out = tmp_path / "out_spec"
@@ -108,9 +108,9 @@ def test_cli_custom_board_5x9(tmp_path, monkeypatch):
     render a 5x9 grid, calibrate via --board-config."""
     import json as _json
 
-    from ccrs_tpu.board import Board, BoardConfig
-    from ccrs_tpu.detect import get_family
-    from ccrs_tpu.testdata import write_euroc_dataset
+    from ccrs_jax.board import Board, BoardConfig
+    from ccrs_jax.detect import get_family
+    from ccrs_jax.testdata import write_euroc_dataset
 
     cfg = BoardConfig(tag_size_meter=0.088, tag_spacing=0.3, tag_rows=5,
                       tag_cols=9, first_id=0)

@@ -6,10 +6,10 @@ import json
 import numpy as np
 import pytest
 
-from ccrs_tpu.cli import main
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.testdata import default_rig_extrinsics, write_euroc_dataset
-from ccrs_tpu.types import RvecTvec
+from ccrs_jax.cli import main
+from ccrs_jax.models import GenericModel
+from ccrs_jax.testdata import default_rig_extrinsics, write_euroc_dataset
+from ccrs_jax.types import RvecTvec
 
 
 @pytest.mark.slow

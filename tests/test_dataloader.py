@@ -3,14 +3,14 @@
 import os
 
 import numpy as np
-import imageio.v3 as iio
 import pytest
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.dataloader import load_euroc, load_general
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.testdata import default_sequence_poses, render_board_image
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.dataloader import load_euroc, load_general
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel
+from ccrs_jax.pngio import write_png
+from ccrs_jax.testdata import default_sequence_poses, render_board_image
 
 
 @pytest.fixture(scope="module")
@@ -29,8 +29,8 @@ def dataset(tmp_path_factory):
     for f, p in enumerate(poses):
         img = render_board_image(model, board, fam, p[:3], p[3:], noise=1.0, seed=f)
         t_ns = 5_000_000_000 + f * 50_000_000
-        iio.imwrite(str(d_euroc / f"{t_ns}.png"), img)
-        iio.imwrite(str(d_gen / f"img_{f:03d}.png"), img)
+        write_png(str(d_euroc / f"{t_ns}.png"), img)
+        write_png(str(d_gen / f"img_{f:03d}.png"), img)
     return root, board
 
 
@@ -137,3 +137,38 @@ def test_spec_factory_hook_lifecycle(dataset):
     assert seen["args"][2:] == (512, 512)
     assert seen["args"][1] == sorted(seen["args"][1])
     assert det.on_provisional is None  # cleared after the sequence
+
+
+_OPTIONAL_IMAGE_MODULES = ("cv2", "imageio", "imageio.v3", "PIL", "PIL.Image")
+
+
+def test_cli_loads_png_dataset_without_optional_image_packages(
+    dataset, monkeypatch
+):
+    """The CLI's loading path reads PNG datasets with nothing beyond numpy,
+    zlib and the native helper: OpenCV, imageio and Pillow are blocked."""
+    import sys
+
+    from ccrs_jax import cli
+
+    for name in _OPTIONAL_IMAGE_MODULES:
+        monkeypatch.setitem(sys.modules, name, None)  # import raises
+    monkeypatch.setenv("CCRS_PREWARM", "0")
+    root, board = dataset
+    args = cli.build_parser().parse_args([str(root / "euroc")])
+    batches = cli.load_feature_data(args, TagDetector("t36h11"), board, None)
+    assert batches[0].n_frames == 6
+    assert batches[0].frame_ok().sum() >= 5
+
+
+def test_jpeg_without_a_decoder_fails_clearly(tmp_path, monkeypatch):
+    import sys
+
+    from ccrs_jax.dataloader import _imread
+
+    for name in _OPTIONAL_IMAGE_MODULES:
+        monkeypatch.setitem(sys.modules, name, None)
+    p = tmp_path / "x.jpg"
+    p.write_bytes(b"\xff\xd8\xff")
+    with pytest.raises(RuntimeError, match="JPEG input needs"):
+        _imread(str(p))

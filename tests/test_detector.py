@@ -1,24 +1,27 @@
 """AprilGrid detector tests: synthetic ground truth + the reference's real
 bundled images (data/euroc.png, data/tum_vi_with_chart.png)."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.solve import se3
-from ccrs_tpu.testdata import front_view_base, gt_corners, render_board_image
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel
+from ccrs_jax.pngio import read_png
+from ccrs_jax.solve import se3
+from ccrs_jax.testdata import front_view_base, gt_corners, render_board_image
 
 EUROC_PNG = "/root/reference/data/euroc.png"
 TUMVI_PNG = "/root/reference/data/tum_vi_with_chart.png"
 
 
 def _load_gray(path):
-    import imageio.v3 as iio
-
-    return iio.imread(path)  # detector normalizes dtype/channels itself
+    if not os.path.exists(path):
+        pytest.skip(f"reference image {path} is not available")
+    return read_png(path)  # detector normalizes dtype/channels itself
 
 
 @pytest.fixture(scope="module")
@@ -89,8 +92,8 @@ def test_tumvi_real_image():
 def _degrade_variants(img):
     """(name, degraded image) pairs: JPEG q60 re-encode, 0.75x downscale,
     gamma-1.8 + sigma-6 sensor noise — the decode-robustness regimes the
-    synthetic renders don't cover (VERDICT r04 #7)."""
-    import cv2
+    synthetic renders don't cover."""
+    cv2 = pytest.importorskip("cv2")
 
     if img.dtype != np.uint8:  # tum_vi_with_chart.png is 16-bit
         img = (img.astype(np.float64) / 257.0).clip(0, 255).astype(np.uint8)
@@ -201,7 +204,7 @@ def test_non_square_board_with_first_id():
     """The reference's bundled 5x9 board config (data/board_config5x9.json)
     plus a nonzero first_id: ids map through board.p3d correctly and no
     out-of-board ids appear."""
-    from ccrs_tpu.board import Board, BoardConfig
+    from ccrs_jax.board import Board, BoardConfig
 
     cfg = BoardConfig(0.088, 0.3, 5, 9, 36)
     board = Board.from_config(cfg) if hasattr(Board, "from_config") else Board(cfg)
@@ -251,8 +254,8 @@ def test_device_resident_matches_host(synth_view):
 
 def test_patch_refine_matches_full_image(synth_view):
     """Patch-local native refinement == full-image native refinement."""
-    from ccrs_tpu.detect.patches import extract_patches
-    from ccrs_tpu.detect.quads import (
+    from ccrs_jax.detect.patches import extract_patches
+    from ccrs_jax.detect.quads import (
         refine_corners_native,
         refine_corners_patches_native,
     )
@@ -277,7 +280,7 @@ def test_patch_refine_matches_full_image(synth_view):
 
 
 def test_board_assist_recovers_tags(synth_view):
-    from ccrs_tpu.board import create_default_6x6_board
+    from ccrs_jax.board import create_default_6x6_board
 
     img, p2d, vis = synth_view
     board = create_default_6x6_board()
@@ -300,7 +303,7 @@ def test_host_dilation_matches_device():
     import jax
     import jax.numpy as jnp
 
-    from ccrs_tpu.detect.detector import _dilate_white_host
+    from ccrs_jax.detect.detector import _dilate_white_host
 
     rng = np.random.default_rng(3)
     b1 = (rng.uniform(size=(3, 40, 48)) < 0.6).astype(np.uint8)
@@ -313,7 +316,7 @@ def test_host_dilation_matches_device():
 
 
 def test_fixed_chunk_padding_matches_natural(synth_view, monkeypatch):
-    """The accelerator branch pads small batches up to the chunk size;
+    """The fixed-shape plan pads small batches up to the chunk size;
     the same tags must decode with corners within the refine noise floor
     (different batch shapes change XLA fusion order, so the iterative
     subpixel refine reassociates float sums — ~1e-3 px, same bound as
@@ -322,9 +325,9 @@ def test_fixed_chunk_padding_matches_natural(synth_view, monkeypatch):
     det_nat = TagDetector("t36h11")
     ref = det_nat.detect_batch(np.asarray(img)[None])
 
-    import jax
+    from ccrs_jax.utils import backend
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(backend, "pad_to_fixed_shapes", lambda: True)
     det_pad = TagDetector("t36h11")
     det_pad.chunk = 8  # keep the padded batch small on CPU
     padded = det_pad.detect_batch(np.asarray(img)[None])
@@ -335,7 +338,7 @@ def test_fixed_chunk_padding_matches_natural(synth_view, monkeypatch):
 
 
 def test_chunk_plan():
-    from ccrs_tpu.detect.detector import _chunk_plan
+    from ccrs_jax.detect.detector import _chunk_plan
 
     # accelerator: mixed 64+8 plan bounds padding waste by small-1
     assert _chunk_plan(534, 64, 8, cpu=False) == [64] * 8 + [8] * 3
@@ -359,9 +362,9 @@ def test_mixed_chunk_plan_matches_natural(synth_view, monkeypatch):
     det_nat = TagDetector("t36h11", track=False)
     ref = det_nat.detect_batch(imgs)
 
-    import jax
+    from ccrs_jax.utils import backend
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(backend, "pad_to_fixed_shapes", lambda: True)
     det_mix = TagDetector("t36h11", track=False)
     det_mix.chunk = 4
     det_mix.cold_chunk = 2

@@ -4,10 +4,10 @@ tiny boards, 16-bit input through the full detect path."""
 import numpy as np
 import pytest
 
-from ccrs_tpu.board import Board, BoardConfig, create_default_6x6_board
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.testdata import default_sequence_poses, gt_corners, render_board_image
+from ccrs_jax.board import Board, BoardConfig, create_default_6x6_board
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel
+from ccrs_jax.testdata import default_sequence_poses, gt_corners, render_board_image
 
 
 def test_odd_image_size_padding_path():
@@ -18,8 +18,8 @@ def test_odd_image_size_padding_path():
     # centered full-board view (mild tilt)
     import jax.numpy as jnp
 
-    from ccrs_tpu.solve import se3
-    from ccrs_tpu.testdata import front_view_base
+    from ccrs_jax.solve import se3
+    from ccrs_jax.testdata import front_view_base
 
     rv, _ = se3.compose(
         jnp.asarray([0.1, -0.08, 0.05]), jnp.zeros(3),
@@ -85,10 +85,10 @@ def test_tumvi_1024_resolution_regime():
     stay sub-0.1px."""
     import jax.random as jr
 
-    from ccrs_tpu.calib import init_and_calibrate_one_camera, validation
-    from ccrs_tpu.calib.frames import FrameBatch
-    from ccrs_tpu.models import zeros_like_model
-    from ccrs_tpu.types import CalibParams
+    from ccrs_jax.calib import init_and_calibrate_one_camera, validation
+    from ccrs_jax.calib.frames import FrameBatch
+    from ccrs_jax.models import zeros_like_model
+    from ccrs_jax.types import CalibParams
 
     board = create_default_6x6_board()
     fam = get_family("t36h11")

@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 import yaml
 
-from ccrs_tpu.export import write_camchain
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.types import RvecTvec
+from ccrs_jax.export import write_camchain
+from ccrs_jax.models import GenericModel
+from ccrs_jax.types import RvecTvec
 
 
 def test_camchain_eucm_stereo(tmp_path):

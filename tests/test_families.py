@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from ccrs_tpu.detect.families import get_family
+from ccrs_jax.detect.families import get_family
 
 
 def test_t36h11_table():
@@ -34,7 +34,7 @@ def test_t25h7_unavailable():
     # t25h7 is intentionally NOT advertised (its canonical table cannot be
     # regenerated offline; see detect/families.py) and must fail loudly
     # with a pointer to the custom-TagFamily escape hatch.
-    from ccrs_tpu.detect.families import FAMILY_NAMES
+    from ccrs_jax.detect.families import FAMILY_NAMES
 
     assert "t25h7" not in FAMILY_NAMES
     with pytest.raises(ValueError, match="t25h7"):
@@ -44,7 +44,7 @@ def test_t25h7_unavailable():
 def test_family_from_table_bits(tmp_path):
     """CLI escape hatch (r02 verdict #5): a user-supplied npz code table
     constructs a working family under the t25h7 name."""
-    from ccrs_tpu.detect.families import family_from_table
+    from ccrs_jax.detect.families import family_from_table
 
     base = get_family("t25h9")  # stand-in 5x5 codes for the table format
     p = tmp_path / "table.npz"
@@ -59,7 +59,7 @@ def test_family_from_table_bits(tmp_path):
 def test_family_from_table_packed(tmp_path):
     """Packed-uint64 tables (upstream apriltag codes[] convention: MSB of
     the size^2-bit word = cell 0) unpack to the same cell bits."""
-    from ccrs_tpu.detect.families import family_from_table
+    from ccrs_jax.detect.families import family_from_table
 
     base = get_family("t25h9")
     nbits = base.size * base.size
@@ -79,8 +79,8 @@ def test_family_from_table_packed(tmp_path):
 def test_cli_accepts_t25h7_with_table(tmp_path):
     """`--tag-family t25h7 --tag-family-table ...` reaches detector
     construction (parity with bin/camera_calibration.rs:31-33)."""
-    from ccrs_tpu.cli import build_parser
-    from ccrs_tpu.detect.families import family_from_table
+    from ccrs_jax.cli import build_parser
+    from ccrs_jax.detect.families import family_from_table
 
     base = get_family("t25h9")
     p = tmp_path / "t.npz"
@@ -89,7 +89,7 @@ def test_cli_accepts_t25h7_with_table(tmp_path):
         ["/nonexistent", "--tag-family", "t25h7", "--tag-family-table", str(p)]
     )
     fam = family_from_table(args.tag_family, args.tag_family_table)
-    from ccrs_tpu.detect import TagDetector
+    from ccrs_jax.detect import TagDetector
 
     det = TagDetector(fam)
     assert det.family.name == "t25h7"

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ccrs_tpu.solve import se3
-from ccrs_tpu.solve.homography import (
+from ccrs_jax.solve import se3
+from ccrs_jax.solve.homography import (
     homography_to_focal,
     radial_distortion_homography,
 )
@@ -132,7 +132,7 @@ def test_focal_traced_matches_host():
     """homography_to_focal_traced (used inside the fused init graph) must
     agree with the host closed form on random homographies, including the
     degenerate-selection branches."""
-    from ccrs_tpu.solve.homography import homography_to_focal_traced
+    from ccrs_jax.solve.homography import homography_to_focal_traced
 
     rng = np.random.default_rng(7)
     for k in range(200):

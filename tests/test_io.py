@@ -1,6 +1,6 @@
 """IO format tests (report.txt format identical to ``src/io.rs:21-31``)."""
 
-from ccrs_tpu.io import object_from_json, object_to_json, write_report
+from ccrs_jax.io import object_from_json, object_to_json, write_report
 
 
 def test_write_report(tmp_path):
@@ -30,7 +30,7 @@ def test_recorder_logs_keyframes(monkeypatch, tmp_path):
     (parity with src/util.rs:898-908; r02 verdict #6)."""
     from types import SimpleNamespace
 
-    from ccrs_tpu import visualization as viz
+    from ccrs_jax import visualization as viz
 
     calls = []
     fake = SimpleNamespace(

@@ -1,11 +1,11 @@
 """Lockstep helpers: the anchor layout and quad-bucket ladder key
 compiled graph shapes, and prewarm() mirrors them — drift between the
-mirror and the real path silently reintroduces first-run remote
-compiles (the round-3 warmup regression)."""
+mirror and the real path silently reintroduces first-run compiles
+(the round-3 warmup regression)."""
 
 import numpy as np
 
-from ccrs_tpu.detect.detector import _anchor_starts, _quad_rung
+from ccrs_jax.detect.detector import _anchor_starts, _quad_rung
 
 
 def test_anchor_starts_cover_every_frame():

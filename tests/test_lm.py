@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ccrs_tpu.models.projections import project_eucm, project_ucm
-from ccrs_tpu.solve import se3
-from ccrs_tpu.solve.lm import LMOptions, ba_solve, lm_solve, reduce_params
+from ccrs_jax.models.projections import project_eucm, project_ucm
+from ccrs_jax.solve import se3
+from ccrs_jax.solve.lm import LMOptions, ba_solve, lm_solve, reduce_params
 
 
 def test_lm_dense_curve_fit_with_bounds_and_fixed():

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccrs_tpu.models import (
+from ccrs_jax.models import (
     MODEL_NAMES,
     N_PARAMS,
     GenericModel,
@@ -140,7 +140,7 @@ def test_model_param_validation():
 
 
 def test_json_file_roundtrip(tmp_path):
-    from ccrs_tpu.models import model_to_json
+    from ccrs_jax.models import model_to_json
 
     m = GenericModel("kb4", PARAMS["kb4"], 640, 512)
     p = tmp_path / "kb4.json"

@@ -3,13 +3,13 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.calib.frames import FrameBatch
-from ccrs_tpu.calib.multi import calib_all_camera_with_extrinsics, init_camera_extrinsic
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.models.projections import project_fn
-from ccrs_tpu.solve import se3
-from ccrs_tpu.types import RvecTvec
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.calib.frames import FrameBatch
+from ccrs_jax.calib.multi import calib_all_camera_with_extrinsics, init_camera_extrinsic
+from ccrs_jax.models import GenericModel
+from ccrs_jax.models.projections import project_fn
+from ccrs_jax.solve import se3
+from ccrs_jax.types import RvecTvec
 
 from synthetic import make_synthetic_batch, tumvi_like_eucm
 
@@ -111,8 +111,8 @@ def test_joint_ba_recovers_stereo_rig():
 def test_mixed_precision_joint_ba_matches_f64():
     """ba_solve_multi_mixed (f32 bulk + f64 polish) reproduces the pure-f64
     joint solution on a noisy stereo problem."""
-    from ccrs_tpu.models.projections import project_eucm
-    from ccrs_tpu.solve.lm import ba_solve_multi, ba_solve_multi_mixed
+    from ccrs_jax.models.projections import project_eucm
+    from ccrs_jax.solve.lm import ba_solve_multi, ba_solve_multi_mixed
 
     board, (cam0, cam1), (batch0, batch1), poses_gt, (r10, t10) = _stereo_case(seed=5)
     F = poses_gt.shape[0]
@@ -152,7 +152,7 @@ def test_mixed_precision_joint_ba_matches_f64():
 
 def test_joint_ba_stereo_ftheta():
     """BASELINE configs[3]: stereo joint intrinsic+extrinsic, FTHETA."""
-    from ccrs_tpu.models.projections import project_ftheta
+    from ccrs_jax.models.projections import project_ftheta
 
     board = create_default_6x6_board()
     cam = GenericModel(

@@ -3,8 +3,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ccrs_tpu.detect.quads import refine_corners_native
-from ccrs_tpu.detect.refine import refine_corners
+from ccrs_jax.detect.quads import refine_corners_native
+from ccrs_jax.detect.refine import refine_corners
 
 
 def _checkerboard(H=128, W=128, cell=16, blur=1.0):
@@ -52,9 +52,9 @@ def test_refine_patches_matches_native_and_truth():
     smooths the gradient products before interpolation, the native kernel
     interpolates gradients then multiplies), so they agree to ~0.05 px —
     well under the detector's noise floor — rather than bit-exactly."""
-    from ccrs_tpu.detect.patches import extract_patches
-    from ccrs_tpu.detect.quads import refine_corners_patches_native
-    from ccrs_tpu.detect.refine import refine_patches
+    from ccrs_jax.detect.patches import extract_patches
+    from ccrs_jax.detect.quads import refine_corners_patches_native
+    from ccrs_jax.detect.refine import refine_patches
 
     img = _checkerboard()
     rng = np.random.default_rng(1)

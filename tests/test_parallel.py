@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccrs_tpu.models.projections import project_eucm
-from ccrs_tpu.parallel.mesh import ba_step_sharded, make_mesh, pad_frames
-from ccrs_tpu.solve import se3
-from ccrs_tpu.solve.lm import ba_solve
+from ccrs_jax.models.projections import project_eucm
+from ccrs_jax.parallel.mesh import ba_step_sharded, make_mesh, pad_frames
+from ccrs_jax.solve import se3
+from ccrs_jax.solve.lm import ba_solve
 
 
 def _case(F=16, N=36, seed=0):
@@ -78,8 +78,8 @@ def test_sharded_iterations_converge():
 
 def test_sharded_multicam_solve_matches_single_device():
     """Frame-sharded joint multi-camera BA == single-device ba_solve_multi."""
-    from ccrs_tpu.parallel.mesh import make_multi_ba_solver, sharded_frame_sharding
-    from ccrs_tpu.solve.lm import ba_solve_multi
+    from ccrs_jax.parallel.mesh import make_multi_ba_solver, sharded_frame_sharding
+    from ccrs_jax.solve.lm import ba_solve_multi
 
     gt, p3d, poses_gt, p2d0 = _case(F=16, seed=3)
     C, F, N = 2, p2d0.shape[0], p2d0.shape[1]
@@ -126,7 +126,7 @@ def test_sharded_multicam_solve_matches_single_device():
 
 
 def test_full_sharded_solve_matches_single_device():
-    from ccrs_tpu.parallel.mesh import make_ba_solver, sharded_frame_sharding
+    from ccrs_jax.parallel.mesh import make_ba_solver, sharded_frame_sharding
 
     gt, p3d, poses_gt, p2d = _case(F=24, seed=2)
     mesh = make_mesh()
@@ -162,8 +162,8 @@ def test_full_sharded_solve_matches_single_device():
 def test_sharded_mixed_matches_single_device_mixed():
     """multi_ba_sharded_mixed (the CLI's multi-device joint-BA route) ==
     ba_solve_multi_mixed, including the F-padding path (F=18 on 8 devs)."""
-    from ccrs_tpu.parallel.mesh import multi_ba_sharded_mixed
-    from ccrs_tpu.solve.lm import ba_solve_multi_mixed
+    from ccrs_jax.parallel.mesh import multi_ba_sharded_mixed
+    from ccrs_jax.solve.lm import ba_solve_multi_mixed
 
     gt, p3d, poses_gt, p2d0 = _case(F=18, seed=5)
     C, F, N = 2, p2d0.shape[0], p2d0.shape[1]
@@ -208,11 +208,11 @@ def test_sharded_detect_matches_single_device():
     """detect_batch with the frame sharding (TagDetector(shard=True)) must
     produce EXACTLY the single-device detections — detection has no
     cross-frame reductions, so sharding may only change placement, never
-    values (VERDICT r04 #6's CPU-mesh equality criterion)."""
-    from ccrs_tpu.board import create_default_6x6_board
-    from ccrs_tpu.detect import TagDetector, get_family
-    from ccrs_tpu.models import GenericModel
-    from ccrs_tpu.testdata import render_board_image, smooth_sequence_poses
+    values (the CPU-mesh equality criterion)."""
+    from ccrs_jax.board import create_default_6x6_board
+    from ccrs_jax.detect import TagDetector, get_family
+    from ccrs_jax.models import GenericModel
+    from ccrs_jax.testdata import render_board_image, smooth_sequence_poses
 
     board = create_default_6x6_board()
     fam = get_family("t36h11")

@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ccrs_tpu.models.projections import project_eucm
-from ccrs_tpu.solve import se3
-from ccrs_tpu.solve.lm import ba_solve, ba_solve_mixed
+from ccrs_jax.models.projections import project_eucm
+from ccrs_jax.solve import se3
+from ccrs_jax.solve.lm import ba_solve, ba_solve_mixed
 
 
 def _problem(F=40, N=144, noise=0.2, seed=3):

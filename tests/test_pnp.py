@@ -4,8 +4,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ccrs_tpu.solve import se3
-from ccrs_tpu.solve.pnp import solve_pnp_planar, solve_pnp_planar_batch
+from ccrs_jax.solve import se3
+from ccrs_jax.solve.pnp import solve_pnp_planar, solve_pnp_planar_batch
 
 
 def test_identity_pose_four_points():
@@ -66,7 +66,7 @@ def test_batched_frames():
 def test_smallest_eigvec_matches_eigh():
     """Cholesky inverse iteration == eigh's smallest eigenvector (up to
     sign) across random PSD spectra, including a near-null direction."""
-    from ccrs_tpu.solve.pnp import _smallest_eigvec
+    from ccrs_jax.solve.pnp import _smallest_eigvec
 
     rng = np.random.default_rng(11)
     for k in range(20):
@@ -83,7 +83,7 @@ def test_smallest_eigvec_matches_eigh():
 def test_project_so3_matches_svd():
     """Newton polar iteration == SVD projection onto SO(3) for
     near-rotation inputs (the Zhang-decomposition regime)."""
-    from ccrs_tpu.solve.pnp import _project_so3
+    from ccrs_jax.solve.pnp import _project_so3
 
     rng = np.random.default_rng(12)
     for k in range(20):

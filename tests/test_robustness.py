@@ -5,13 +5,13 @@ import jax.random as jr
 import numpy as np
 import pytest
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.calib import init_and_calibrate_one_camera, validation
-from ccrs_tpu.calib.frames import FrameBatch
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel, zeros_like_model
-from ccrs_tpu.testdata import default_sequence_poses, render_board_image
-from ccrs_tpu.types import CalibParams
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.calib import init_and_calibrate_one_camera, validation
+from ccrs_jax.calib.frames import FrameBatch
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel, zeros_like_model
+from ccrs_jax.testdata import default_sequence_poses, render_board_image
+from ccrs_jax.types import CalibParams
 
 
 @pytest.mark.slow

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ccrs_tpu.solve import se3
+from ccrs_jax.solve import se3
 
 
 def test_exp_log_roundtrip():
@@ -47,7 +47,7 @@ def test_compose_inverse_transform():
 
 
 def test_matches_host_rodrigues():
-    from ccrs_tpu.types import rodrigues
+    from ccrs_jax.types import rodrigues
 
     r = np.array([0.4, -0.1, 0.25])
     np.testing.assert_allclose(

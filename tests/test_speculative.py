@@ -6,19 +6,19 @@ LM iteration count, never the result beyond solver tolerance)."""
 import numpy as np
 import jax.random as jr
 
-import ccrs_tpu.calib.pipeline as pipeline_mod
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.calib.frames import FrameBatch
-from ccrs_tpu.calib.pipeline import (
+import ccrs_jax.calib.pipeline as pipeline_mod
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.calib.frames import FrameBatch
+from ccrs_jax.calib.pipeline import (
     SpeculativeCalib,
     calibrate_camera_with_retries,
     fill_poses_lerp,
 )
-from ccrs_tpu.calib.single import calib_camera
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel, zeros_like_model
-from ccrs_tpu.testdata import render_board_image, smooth_sequence_poses
-from ccrs_tpu.types import CalibParams
+from ccrs_jax.calib.single import calib_camera
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel, zeros_like_model
+from ccrs_jax.testdata import render_board_image, smooth_sequence_poses
+from ccrs_jax.types import CalibParams
 
 GT = [190.9, 190.87, 254.94, 256.86, 0.628, 1.046]
 
@@ -82,7 +82,7 @@ def test_warm_start_matches_cold_optimum():
 def test_skip_pose_init_matches_cold_optimum():
     """The no-PnP warm variant (skip_pose_init=True, full-coverage warm
     poses) must converge to the same optimum as the cold full-PnP solve —
-    it replaces 0.48 s of emulated-f64 PnP on the device, and may only
+    it replaces the f64 PnP on the device, and may only
     change the LM trajectory, never the result."""
     board, imgs = _render_seq(12)
     det = TagDetector("t36h11", track=False)
@@ -115,7 +115,7 @@ def test_skip_pose_init_matches_cold_optimum():
     assert warm is not None
     model_w, rt_w = warm
     np.testing.assert_allclose(model_w.params, model_c.params, atol=1e-6)
-    from ccrs_tpu.solve import se3
+    from ccrs_jax.solve import se3
 
     probe = np.eye(3)
     for i in rt_c:
@@ -134,7 +134,7 @@ def test_fill_poses_lerp_rvec_double_cover():
     """fill_poses_lerp must re-branch axis-angle representatives before
     lerping: r and (1 - 2*pi/|r|) r encode the SAME rotation, and naive
     componentwise lerp across such a flip produces a garbage rotation."""
-    from ccrs_tpu.solve import se3
+    from ccrs_jax.solve import se3
 
     def rotmat(rvec):
         p = np.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])

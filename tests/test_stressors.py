@@ -10,10 +10,10 @@ as hard failures.
 import numpy as np
 import pytest
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.testdata import (
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel
+from ccrs_jax.testdata import (
     gt_corners,
     render_board_image,
     smooth_sequence_poses,

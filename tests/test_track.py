@@ -1,18 +1,21 @@
 """Tracking fast-path tests: recall parity with the cold detector.
 
-The video fast path (ccrs_tpu/detect/track.py) must never silently drop a
+The video fast path (ccrs_jax/detect/track.py) must never silently drop a
 tag the cold pipeline would find — the fallback trigger policy re-runs the
 cold pipeline on any suspect frame, so per-frame detections are a superset
-of the cold detector's (VERDICT round-2 item #1's "done" criterion)."""
+of the cold detector's."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.testdata import (
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel
+from ccrs_jax.testdata import (
     render_board_image,
     smooth_sequence_poses,
 )
@@ -86,8 +89,8 @@ def test_track_bounded_staleness_marginal_sequence(bench_like_video):
 @pytest.fixture(scope="module")
 def bench_like_video():
     """48 frames of the bench's own smooth-video regime (device render)."""
-    from ccrs_tpu.models import GenericModel
-    from ccrs_tpu.testdata import render_frames_device
+    from ccrs_jax.models import GenericModel
+    from ccrs_jax.testdata import render_frames_device
 
     board = create_default_6x6_board()
     gt = GenericModel(
@@ -105,7 +108,7 @@ def bench_like_video():
 def test_track_steady_state_uses_fast_path(bench_like_video):
     """On realistic smooth video the cold fallback runs on a small
     minority of frames — the fast path must actually carry the load."""
-    from ccrs_tpu.utils import profiling
+    from ccrs_jax.utils import profiling
 
     board, imgs = bench_like_video
     det = TagDetector("t36h11", track=True)
@@ -269,8 +272,8 @@ def test_tracked_session_provisional_fires_once_with_all_frames(
     bench_like_video,
 ):
     """The session's provisional hook must fire at most once, with the
-    full (unpadded) frame list — chunked callers get working speculation
-    (VERDICT r04 #1/#5).  When it fires, results must already carry the
+    full (unpadded) frame list — chunked callers get working speculation.
+    When it fires, results must already carry the
     steady-state detections (audit corrections are the only delta)."""
     board, imgs = bench_like_video
     det = TagDetector("t36h11", track=True)
@@ -291,6 +294,50 @@ def test_tracked_session_provisional_fires_once_with_all_frames(
     assert len(final) == 48
 
 
+def _board_xy(board):
+    return board.p3d.reshape(board.n_tags, 4, 3)[:, :, :2]
+
+
+def test_neighbor_rank_breaks_ties_by_index():
+    from ccrs_jax.detect.track import neighbor_rank
+
+    board = create_default_6x6_board()
+    n = board.n_tags
+    rank = neighbor_rank(_board_xy(board))
+    assert rank.dtype == np.int32
+    assert (np.sort(rank, axis=1) == np.arange(n)).all()  # permutations
+    assert (np.diag(rank) == 0).all()
+    # corner tag 0: the right (1) and lower (6) neighbors tie at one
+    # spacing, the diagonal (7) follows; tags 2 and 12 tie at two spacings
+    assert (rank[0, 1], rank[0, 6], rank[0, 7]) == (1, 2, 3)
+    assert rank[0, 2] + 1 == rank[0, 12]
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.booleans(), min_size=36, max_size=36))
+def test_nearest_valid_matches_sorted_reference(valid):
+    """The 4 neighbors the predictors fit are the nearest tags with a
+    detection, ties to the lower index: a stable sort of the exact grid
+    distances of the 6x6 board."""
+    from ccrs_jax.detect.track import N_NEIGHBORS, _nearest_valid, neighbor_rank
+
+    board = create_default_6x6_board()
+    bxy = _board_xy(board)
+    valid = np.asarray(valid)
+    idx, ok = jax.jit(_nearest_valid)(
+        jnp.asarray(neighbor_rank(bxy)), jnp.asarray(valid)
+    )
+    idx, ok = np.asarray(idx), np.asarray(ok)
+    rc = np.array([divmod(i, 6) for i in range(board.n_tags)])
+    d2 = ((rc[:, None] - rc[None]) ** 2).sum(-1)
+    cand = np.flatnonzero(valid)
+    for i in range(board.n_tags):
+        want = cand[np.argsort(d2[i, cand], kind="stable")][:N_NEIGHBORS]
+        assert ok[i] == (len(cand) >= N_NEIGHBORS)
+        if ok[i]:
+            assert idx[i].tolist() == want.tolist()
+
+
 def test_wave_advance_graph_direct():
     """Unit-level: wave_advance decodes tags from an exact-prediction seed,
     masks inactive rows, and reports acc <= att.
@@ -301,9 +348,10 @@ def test_wave_advance_graph_direct():
     default vm.max_map_count — conftest.py raises the limit (or bypasses
     the persistent cache when it can't).
     """
-    from ccrs_tpu.detect.track import (
+    from ccrs_jax.detect.track import (
         detections_to_arrays,
         init_wave_carry,
+        neighbor_rank,
         wave_advance,
     )
 
@@ -331,14 +379,16 @@ def test_wave_advance_graph_direct():
     v1r = np.stack([v1, v1])
     c2r = np.stack([c2, c2])
     v2r = np.stack([v2, v2])
-    bxy = jnp.asarray(board.p3d.reshape(n, 4, 3)[:, :, :2].astype(np.float32))
+    bxy_np = board.p3d.reshape(n, 4, 3)[:, :, :2]
+    bxy = jnp.asarray(bxy_np.astype(np.float32))
     carry = tuple(
         jnp.asarray(a) for a in init_wave_carry(c1r, v1r, c2r, v2r)
     )
     active = jnp.asarray(np.array([True, False]))
     wave_imgs = jnp.asarray(np.stack([imgs[2], imgs[2]]))
     carry2, (cor, acc, att, ben) = wave_advance(
-        fam, wave_imgs, bxy, jnp.asarray(np.int32(board.config.first_id)),
+        fam, wave_imgs, bxy, jnp.asarray(neighbor_rank(bxy_np)),
+        jnp.asarray(np.int32(board.config.first_id)),
         carry, active,
     )
     acc = np.asarray(acc)
@@ -357,7 +407,7 @@ def test_no_audits_no_speculation(video, monkeypatch):
     with zero audits there is nothing to overlap, and a speculation the
     caller joins SERIALIZES in front of the final solve (measured
     +0.08 s on the clean 128-frame 1024 bench regime)."""
-    import ccrs_tpu.detect.audit as audit_mod
+    import ccrs_jax.detect.audit as audit_mod
 
     board, imgs = video
     # a batch that audits (the noisy fixture) fires the hook once

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from ccrs_tpu.types import RvecTvec, rodrigues, rotation_to_rvec
+from ccrs_jax.types import RvecTvec, rodrigues, rotation_to_rvec
 
 
 def test_rvec_tvec_conversion():

@@ -3,15 +3,15 @@ after remapping through the estimated pinhole."""
 
 import numpy as np
 
-from ccrs_tpu.board import create_default_6x6_board
-from ccrs_tpu.detect import TagDetector, get_family
-from ccrs_tpu.models import GenericModel
-from ccrs_tpu.models.undistort import (
+from ccrs_jax.board import create_default_6x6_board
+from ccrs_jax.detect import TagDetector, get_family
+from ccrs_jax.models import GenericModel
+from ccrs_jax.models.undistort import (
     estimate_new_camera_matrix_for_undistort,
     init_undistort_map,
     remap,
 )
-from ccrs_tpu.testdata import default_sequence_poses, render_board_image
+from ccrs_jax.testdata import default_sequence_poses, render_board_image
 
 
 def test_undistort_map_pinhole_consistency():

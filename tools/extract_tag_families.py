@@ -1,4 +1,4 @@
-"""Regenerate the AprilTag family code tables bundled with ccrs_tpu.
+"""Regenerate the AprilTag family code tables bundled with ccrs_jax.
 
 The tables are extracted from OpenCV's predefined aruco dictionaries
 (`cv2.aruco.DICT_APRILTAG_*`) by rendering every marker image and reading
@@ -9,11 +9,11 @@ Families (matching the reference CLI surface,
 /root/reference/src/bin/camera_calibration.rs:31-33):
   t16h5, t25h9, t36h11, t36h11b1 (same codes as t36h11, 1-px border layout).
   t25h7 is NOT shipped by OpenCV (dropped upstream for poor hamming
-  properties); ccrs_tpu raises a clear error for it unless the user supplies
+  properties); ccrs_jax raises a clear error for it unless the user supplies
   a custom code table.
 
 Usage: python tools/extract_tag_families.py
-Writes: ccrs_tpu/detect/data/tag_families.npz
+Writes: ccrs_jax/detect/data/tag_families.npz
 """
 
 import os
@@ -21,7 +21,7 @@ import os
 import cv2
 import numpy as np
 
-OUT = os.path.join(os.path.dirname(__file__), "..", "ccrs_tpu", "detect", "data", "tag_families.npz")
+OUT = os.path.join(os.path.dirname(__file__), "..", "ccrs_jax", "detect", "data", "tag_families.npz")
 
 FAMS = {
     "t16h5": (cv2.aruco.DICT_APRILTAG_16h5, 4),

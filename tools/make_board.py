@@ -29,9 +29,9 @@ def main():
     ap.add_argument("--dpi", type=int, default=300)
     args = ap.parse_args()
 
-    from ccrs_tpu.board import Board, BoardConfig
-    from ccrs_tpu.detect import get_family
-    from ccrs_tpu.testdata import board_pattern_image
+    from ccrs_jax.board import Board, BoardConfig
+    from ccrs_jax.detect import get_family
+    from ccrs_jax.testdata import board_pattern_image
 
     cfg = BoardConfig(args.tag_size, args.spacing, args.rows, args.cols, args.first_id)
     board = Board(cfg)
@@ -52,9 +52,9 @@ def main():
     img = img[:, ::-1]
     out8 = (np.clip(img, 0, 1) * 255).astype(np.uint8)
 
-    import imageio.v3 as iio
+    from ccrs_jax.pngio import write_png
 
-    iio.imwrite(args.out, out8)
+    write_png(args.out, out8)
     w_m = out8.shape[1] * 0.0254 / dpi_eff
     print(
         f"wrote {args.out}: {out8.shape[1]}x{out8.shape[0]} px; print at "
